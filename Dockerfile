@@ -1,10 +1,9 @@
 # stoat-tpu container — parity with the reference's Dockerfile
 # (/root/reference/Dockerfile: Ubuntu 22.04 + build deps + vg binary),
-# adapted to the TPU-native stack: python + jax + a C++17 toolchain for
-# the auto-compiled native cores (VCF ingest, snarl decomposition,
-# baseline).  For real TPU hosts, swap the jax pin for the libtpu
-# release wheel: pip install 'jax[tpu]' -f
-# https://storage.googleapis.com/jax-releases/libtpu_releases.html
+# adapted to this stack: python + jax + a C++17 toolchain for the
+# auto-compiled native cores (VCF ingest, snarl decomposition, baseline).
+# On an NVIDIA GPU host, install the CUDA plugin of the installed JAX
+# (pip install "jax[cuda12]") and run with --gpus all.
 FROM ubuntu:22.04
 
 ENV DEBIAN_FRONTEND=noninteractive

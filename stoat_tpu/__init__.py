@@ -1,13 +1,13 @@
-"""stoat-tpu: a TPU-native pangenome association-testing engine.
+"""stoat-tpu: a JAX + C++ pangenome association-testing engine.
 
 A from-scratch re-design of the capabilities of Pa-Tou/stoat (snarl-tree
-orchestrated GWAS on variation graphs) built on JAX/XLA/Pallas.  Instead of
+orchestrated GWAS on variation graphs) built on JAX/XLA.  Instead of
 the reference's per-snarl scalar loops (C++/OpenMP, see
 /root/reference/src/snarl_analyzer.cpp:165), stoat-tpu batches thousands of
 snarls into dense padded tensors and runs the whole statistics engine —
 chi-squared, Fisher's exact test, OLS linear regression, IRLS logistic
-regression — as vectorized TPU kernels, sharded data-parallel over snarls
-across a device mesh.
+regression — as vectorized XLA programs on the GPU, sharded data-parallel
+over snarls across a device mesh when several cards are visible.
 
 Layering (bottom to top):
 

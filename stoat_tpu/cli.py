@@ -78,7 +78,7 @@ def main_vcf(argv: List[str]) -> int:
                          "{binary,quantitative}_permutation_vcf.tsv; "
                          "chi2 for -b, OLS t for -q, and with -c a "
                          "covariate-ADJUSTED score test for -b / "
-                         "Freedman-Lane for -q — a TPU-native extension "
+                         "Freedman-Lane for -q — an extension "
                          "the reference lacks)")
     ap.add_argument("--perm-seed", type=int, default=0)
     ap.add_argument("--resume", action="store_true",

@@ -1,6 +1,6 @@
 """Edge×haplotype genotype matrix construction.
 
-TPU-native re-design of the reference's packed bit matrix
+A re-design of the reference's packed bit matrix
 (/root/reference/src/matrix.{hpp,cpp}) and its VCF ingestion loop
 (``make_edge_matrix``, snarl_analyzer.cpp:190-260): one matrix per
 chromosome, rows keyed by graph edges (oriented node pairs), columns =

@@ -1,6 +1,6 @@
 // stoat-tpu native core: GFA snarl decomposition.
 //
-// C++17 port of the TPU framework's snarl decomposition
+// C++17 port of the package's Python snarl decomposition
 // (stoat_tpu/graph/{gfa,snarls,decompose}.py) — the [native-critical]
 // preprocessing stage whose reference counterpart is C++/libbdsg
 // (/root/reference/src/snarl_data_t.cpp:417-773).  Mirrors the Python

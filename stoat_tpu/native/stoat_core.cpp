@@ -1,6 +1,6 @@
 // stoat-tpu native core: streaming VCF -> bit-packed edge×haplotype matrix.
 //
-// TPU-native replacement for the reference's htslib ingestion loop
+// A replacement for the reference's htslib ingestion loop
 // (SnarlAnalyzer::make_edge_matrix, /root/reference/src/snarl_analyzer.cpp:
 // 190-260) and the packed bit matrix (src/matrix.{hpp,cpp}).  Written from
 // scratch in C++17: parses VCF text (plain or gzip via zlib), extracts the

@@ -1,7 +1,7 @@
 """SPMD execution: snarl-sharded meshes and sharded analysis dispatch.
 
 The reference's only parallelism is OpenMP threads over snarls
-(/root/reference/src/snarl_analyzer.cpp:165).  The TPU-native equivalent is
+(/root/reference/src/snarl_analyzer.cpp:165).  The equivalent here is
 data parallelism over the snarl axis: a 1-D device mesh, the edge×haplotype
 matrix and phenotype replicated, per-shard p-value/stat arrays gathered back
 to host 0 for output and BH post-processing (SURVEY.md §5.8).

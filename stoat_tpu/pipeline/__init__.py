@@ -1,3 +1,3 @@
 """End-to-end analysis pipelines (binary / binary+covar / quantitative /
-eQTL), the TPU-batched equivalents of the reference's SnarlAnalyzer
+eQTL), the batched device equivalents of the reference's SnarlAnalyzer
 subclasses (/root/reference/src/snarl_analyzer.cpp:358-539)."""

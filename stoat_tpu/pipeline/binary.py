@@ -65,6 +65,8 @@ def binary_tables_device(matrix_f32, coo_path, coo_row, n_edges_per_path,
         num_paths).astype(jnp.float32)                       # [P, H]
 
     # Carrier counts per path: one matmul against the phenotype one-hot.
+    # Precision: default (TF32-eligible on the GPU); 0/1 operands are
+    # exact in TF32 and the f32 sums are exact below 2^24 haplotypes.
     g1_path = membership @ pheno_hap                          # [P]
     g0_path = membership @ (1.0 - pheno_hap)                  # [P]
 

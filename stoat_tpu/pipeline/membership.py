@@ -6,8 +6,8 @@ snarl_analyzer.cpp:315-356): O(paths × edges × 2N) scalar bit reads.
 
 Here the whole chromosome resolves at once: gather the edge-matrix rows
 referenced by any path (COO), segment-sum them per path, and compare with
-each path's edge count — one gather + segment-sum + compare, all dense and
-MXU/VPU-friendly.  float32 is exact for these small-integer counts.
+each path's edge count — one gather + segment-sum + compare, all dense.
+float32 is exact for these small-integer counts.
 """
 
 from __future__ import annotations

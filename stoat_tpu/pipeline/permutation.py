@@ -6,9 +6,7 @@ cohort?".  The reference cannot offer this (its per-snarl scalar loop
 makes K permutations K× the full run); here each chunk's packed
 membership is computed ONCE on device and whole batches of permuted
 phenotypes ride the same program, so 1,000 permutations cost ~60 extra
-dispatches of counts + statistics (~1.6-2.0M permuted
-snarl-tests/s measured on one v5e chip, driver-captured as
-perm_snarl_tests_per_s).
+dispatches of counts + statistics (throughput on the GPU: not measured).
 
 Method (Westfall–Young **min-P**):
   * per-permutation statistic = the ASYMPTOTIC p-value of the same test

@@ -124,10 +124,9 @@ def _design_from_membership(membership, snarl_path_idx, covar,
                             with_covar: bool, all_rows: bool):
     """Shared design assembly from the [P, H] membership matrix.
 
-    Dtype strategy (measured 32x on a v5e: 1.18 s -> 37 ms per 32k-snarl
-    chunk): every [S, N, P]-sized intermediate stays float32 — diploid
-    dosage counts are integers ≤ 2, exact in f32 — and float64 (emulated
-    on TPU) appears only in the final X scale and the MAF statistics.
+    Dtype strategy: every [S, N, P]-sized intermediate stays float32 —
+    diploid dosage counts are integers ≤ 2, exact in f32 — and float64
+    appears only in the final X scale and the MAF statistics.
     Exactness of the scale: norm = count · (1/row_sum) in f64 equals the
     reference's count/row_sum division BIT-FOR-BIT because count ∈
     {0, 1, 2} (×1 trivial, ×2 is an exact power-of-two scale)."""
@@ -160,7 +159,8 @@ def _design_from_membership(membership, snarl_path_idx, covar,
     # each used row's normalized fractions sum to 1 exactly in the
     # count·recip formulation, so total mass == used-row count
     total_sum = n_used.astype(jnp.float64)
-    # column mass in f64 via an MXU contraction (not [S,N,P] elementwise)
+    # column mass in f64 via a contraction (not [S,N,P] elementwise);
+    # f64 contractions never run in TF32
     colsum = jnp.einsum("snp,sn->sp", Dk.astype(jnp.float64), recip)
     kept_count = jnp.sum(kept, axis=-1)
 
@@ -180,9 +180,11 @@ def _design_from_membership(membership, snarl_path_idx, covar,
     # eq[s,i,j]: columns i and j agree on every used row.  Normalized
     # columns are equal iff the integer dosage-count columns are equal
     # (rows share their row_sum), so the test is an exact small-integer
-    # matmul: ||d_i - d_j||^2 == 0, MXU-friendly and O(S·P^2) memory
-    # instead of an [S,N,P,P] broadcast.  f32 stays exact up to 2^24
-    # (counts ≤ 2 -> inner products ≤ 4N: exact for N < 4M samples).
+    # matmul: ||d_i - d_j||^2 == 0, O(S·P^2) memory instead of an
+    # [S,N,P,P] broadcast.  Precision: default (TF32-eligible on the
+    # GPU).  Operands are integers ≤ 2, which TF32's 10-bit mantissa
+    # holds exactly, and f32 accumulation is exact below 2^24 (inner
+    # products ≤ 4N): exact for N < 4M samples.
     G = jnp.einsum("snp,snq->spq", Dk, Dk)                    # exact ints
     gd = jnp.diagonal(G, axis1=1, axis2=2)
     dist2 = gd[:, :, None] + gd[:, None, :] - 2.0 * G
@@ -193,7 +195,9 @@ def _design_from_membership(membership, snarl_path_idx, covar,
     do_merge = (kept_count >= 3)[:, None]
     rep = jnp.where(do_merge, rep, jnp.where(kept, arange[None, :], big))
 
-    # merged counts: integer column sums (f32 exact, MXU)
+    # merged counts: integer column sums.  Precision: default (TF32-
+    # eligible); operands are counts ≤ 2 and 0/1 one-hots, exact in TF32,
+    # sums exact below 2^24 (N < 4M samples).
     group = (rep[:, None, :] == arange[None, :, None])        # [S, Pi, Pj]
     merged_cnt = jnp.einsum("snj,sij->sni", Dk,
                             group.astype(jnp.float32))        # [S,N,Pmax]
@@ -209,8 +213,10 @@ def _design_from_membership(membership, snarl_path_idx, covar,
 
     # ---- assemble X = [1 | variant cols | covariates] ------------------
     # Variant columns gather as a tiny one-hot batched matmul over the
-    # merged COUNT columns (f32, MXU), scaled once into f64; the
-    # intercept and covariate columns overlay by slot type.
+    # merged COUNT columns (f32), scaled once into f64; the intercept and
+    # covariate columns overlay by slot type.  Precision: default (TF32-
+    # eligible); merged counts (≤ 2 per path, ≤ 8 per merged column)
+    # times 0/1 one-hots are exact in TF32 and in f32 accumulation.
     C = covar.shape[1] if with_covar else 0
     PT = 1 + Pmax + C
     t = jnp.arange(PT)[None, :]                               # [1, PT]
@@ -309,7 +315,7 @@ def _fused_packed_analysis(words, path_idx, path_valid, snarl_path_idx,
                            kind: str):
     """One-dispatch chunk analysis: design + regression + NA masking.
 
-    Fusing matters twice on TPU: XLA dead-code-eliminates the big design
+    Fusing matters twice: XLA dead-code-eliminates the big design
     intermediates from the executable's OUTPUTS when -T is off (X and
     norm are [S, N, P] f64 — hundreds of MB at chunk scale that would
     otherwise be materialized as unused output buffers), and the chunk

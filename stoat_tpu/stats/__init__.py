@@ -2,7 +2,7 @@
 
 Every kernel is a pure, jit-able function over dense padded batches of
 contingency tables / design matrices, replacing the reference's per-snarl
-scalar C++ loops (/root/reference/src/stats_test.cpp) with vectorized TPU
+scalar C++ loops (/root/reference/src/stats_test.cpp) with vectorized XLA
 code.  All statistics run in float64 (x64 mode) because the output contract
 is 4-significant-digit string parity with the C++/Boost/Eigen oracle.
 

@@ -73,13 +73,9 @@ def _fisher_single(m11, m12, m21, m22):
         probn = prob * ((c12 * c21) / (c11n * c22n))
         c12n = c12 - 1.0
         c21n = c21 - 1.0
-        # NOT "> DBL_MAX": the emulated-f64 TPU backend evaluates
-        # inf > DBL_MAX as False, and its double-double multiply can
-        # produce NaN directly at the overflow step (inf - inf in the
-        # error term; both measured) — so the robust equivalent of the
-        # reference's `cur_prob > DBL_MAX` is "no longer finite"
-        # (inputs here are positive finite, so NaN can only mean
-        # overflow)
+        # the reference's `cur_prob > DBL_MAX`, written as "no longer
+        # finite or above DBL_MAX": the inputs are positive and finite,
+        # so a NaN here can only come from the overflow step
         overflow = ~jnp.isfinite(probn) | (probn > _DBL_MAX)
         under = probn < _BIAS
         tprobn = jnp.where(under, tprob + probn, tprob)

@@ -1,33 +1,26 @@
-"""TPU-native float64 dense linear algebra for small batched matrices.
-
-XLA:TPU implements LuDecomposition/SVD only for f32, but the statistics
-contract needs f64.  These routines use only elementary arithmetic (which
-the TPU executes in emulated f64), so one code path serves CPU and TPU:
+"""Float64 dense linear algebra for small batched matrices.
 
   - ``ldlt_factor`` / ``ldlt_solve``: unpivoted LDL^T — the same family as
     Eigen's LDLT used by the reference (stats_test.cpp:398-421,106-135);
     solving against the identity reproduces the reference's
-    ``ldlt.solve(I)`` inverse.
-  - ``jacobi_eigh``: cyclic Jacobi eigendecomposition of symmetric
-    matrices — powers the SVD-pseudo-inverse fallback (XtX is symmetric,
-    so its SVD is its eigendecomposition up to signs).
+    ``ldlt.solve(I)`` inverse.  This is the output-parity contract of the
+    regressions, so it is written out step by step rather than taken from
+    a library factorization with other pivoting and rounding.
+  - ``sym_pinv``: the SVD pseudo-inverse fallback for rank-deficient
+    designs (XtX is symmetric, so its SVD is its eigendecomposition up to
+    signs), on ``jnp.linalg.eigh``.
 
-Matrices are [B, P, P] with P small (design-matrix width); cost is
-O(B·P^3) per sweep and Jacobi converges quadratically.
+Matrices are [B, P, P] with P small (design-matrix width).
 """
 
 from __future__ import annotations
 
-from functools import partial
-
 from stoat_tpu import jaxconfig  # noqa: F401
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
-__all__ = ["ldlt_factor", "ldlt_solve", "ldlt_inverse", "jacobi_eigh",
-           "sym_pinv"]
+__all__ = ["ldlt_factor", "ldlt_solve", "ldlt_inverse", "sym_pinv"]
 
 
 def ldlt_factor(A):
@@ -109,67 +102,13 @@ def ldlt_inverse(A):
     return ldlt_solve(A, eye)
 
 
-@partial(jax.jit, static_argnames=("sweeps",))
-def jacobi_eigh(A, sweeps: int = 12):
-    """Cyclic Jacobi eigendecomposition of batched symmetric matrices.
+def sym_pinv(A, tol: float = 1e-6):
+    """Moore-Penrose pseudo-inverse of batched symmetric A with an absolute
+    singular-value tolerance (stats_test.cpp:383-396 applied to XtX).
 
-    Returns (w, V) with A ≈ V diag(w) V^T.  Deterministic fixed sweep
-    count; 12 sweeps is far past quadratic convergence for P <= 64.
-    """
-    B, P, _ = A.shape
-    if P == 1:
-        return A[:, :, 0], jnp.ones_like(A)
-
-    pairs = [(p, q) for p in range(P - 1) for q in range(p + 1, P)]
-    pq = jnp.array(pairs, jnp.int32)
-    n_pairs = len(pairs)
-
-    def rotate(k, carry):
-        Amat, V = carry
-        p = pq[k % n_pairs, 0]
-        q = pq[k % n_pairs, 1]
-        app = Amat[:, p, p]
-        aqq = Amat[:, q, q]
-        apq = Amat[:, p, q]
-
-        small = jnp.abs(apq) < 1e-300
-        apq_safe = jnp.where(small, 1.0, apq)
-        tau = (aqq - app) / (2.0 * apq_safe)
-        t = jnp.sign(tau) / (jnp.abs(tau) + jnp.sqrt(1.0 + tau * tau))
-        t = jnp.where(tau == 0.0, 1.0, t)
-        c = 1.0 / jnp.sqrt(1.0 + t * t)
-        s = t * c
-        c = jnp.where(small, 1.0, c)
-        s = jnp.where(small, 0.0, s)
-
-        # rows p,q of A
-        row_p = Amat[:, p, :]
-        row_q = Amat[:, q, :]
-        new_p = c[:, None] * row_p - s[:, None] * row_q
-        new_q = s[:, None] * row_p + c[:, None] * row_q
-        Amat = Amat.at[:, p, :].set(new_p).at[:, q, :].set(new_q)
-        # cols p,q
-        col_p = Amat[:, :, p]
-        col_q = Amat[:, :, q]
-        new_cp = c[:, None] * col_p - s[:, None] * col_q
-        new_cq = s[:, None] * col_p + c[:, None] * col_q
-        Amat = Amat.at[:, :, p].set(new_cp).at[:, :, q].set(new_cq)
-        # accumulate V
-        vp = V[:, :, p]
-        vq = V[:, :, q]
-        V = (V.at[:, :, p].set(c[:, None] * vp - s[:, None] * vq)
-              .at[:, :, q].set(s[:, None] * vp + c[:, None] * vq))
-        return Amat, V
-
-    V0 = jnp.broadcast_to(jnp.eye(P, dtype=A.dtype), (B, P, P)) + A * 0.0
-    Amat, V = lax.fori_loop(0, sweeps * n_pairs, rotate, (A, V0))
-    w = jnp.diagonal(Amat, axis1=1, axis2=2)
-    return w, V
-
-
-def sym_pinv(A, tol: float = 1e-6, sweeps: int = 12):
-    """Moore-Penrose pseudo-inverse of symmetric A with an absolute
-    singular-value tolerance (stats_test.cpp:383-396 applied to XtX)."""
-    w, V = jacobi_eigh(A, sweeps=sweeps)
+    For symmetric A the SVD is the eigendecomposition up to signs; XLA
+    lowers the batched f64 ``eigh`` to cuSOLVER on the GPU and LAPACK on
+    the CPU."""
+    w, V = jnp.linalg.eigh(A)
     winv = jnp.where(jnp.abs(w) > tol, 1.0 / jnp.where(w == 0, 1.0, w), 0.0)
     return jnp.einsum("bip,bp,bjp->bij", V, winv, V)

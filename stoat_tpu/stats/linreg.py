@@ -38,9 +38,8 @@ _PINV_TOL = 1e-6   # stats_test.cpp:386
 
 
 # Up to this design width the regression runs fully unrolled on [B]- and
-# [B, N]-shaped arrays: [B, P, P] matrix forms leave 96% of the VPU lanes
-# idle at P ~ 5 and the sequential LDLT/solve loops each pay an emulated-
-# f64 pass over nearly-empty tiles (measured 3-4x on a v5e at 32k snarls).
+# [B, N]-shaped arrays instead of [B, P, P] matrix forms and sequential
+# LDLT/solve loops over nearly-empty P x P tiles.
 _UNROLL_P_MAX = 8
 
 
@@ -104,7 +103,7 @@ def _ols_unrolled_body(X, y, row_mask, ncols):
         for i in range(P):
             inv[i][m] = x[i]
 
-    # rank-deficient rows: Jacobi pseudo-inverse fallback, cond-gated
+    # rank-deficient rows: pseudo-inverse fallback, cond-gated
     # (rare; see linear_regression_stats_batch)
     def with_pinv():
         A = jnp.stack([jnp.stack(row, axis=-1) for row in XtX], axis=-2)
@@ -161,16 +160,14 @@ def linear_regression_stats_batch(X, y, row_mask, ncols):
     XtX = jnp.einsum("bnp,bnq->bpq", X, X)
     XtX = XtX + pad_diag[:, :, None] * jnp.eye(P)[None]
 
-    # Pure-arithmetic LDLT + Jacobi pinv: XLA:TPU has no f64 LU/SVD
-    # primitives, and LDLT-against-identity is exactly what Eigen does.
+    # LDLT-against-identity is exactly what Eigen does in the reference.
     L, D = ldlt_factor(XtX)
     bad_d = real_col & ((jnp.abs(D) < _LDLT_TOL) | ~jnp.isfinite(D))
     rank_deficient = jnp.any(bad_d, axis=-1)
 
     eye = jnp.broadcast_to(jnp.eye(P, dtype=X.dtype), (B, P, P))
     Z = ldlt_solve(XtX, eye)
-    # The Jacobi pseudo-inverse fallback is a long sequential sweep in
-    # emulated f64 — run it only when some snarl is actually
+    # The pseudo-inverse fallback runs only when some snarl is actually
     # rank-deficient (lax.cond on the batch-wide predicate; deficiency
     # is rare in real cohorts).
     XtXinv = lax.cond(

@@ -8,8 +8,8 @@ that behavior by default (parse + warn) and adds a real mixed model behind
 ``--lmm``.
 
 Method: EMMA/EMMAX (Kang et al. 2008, 2010), the standard exact-eigen
-approach — and a natural TPU fit, because the per-snarl solve becomes a
-batched *rotated OLS* on the existing kernel:
+approach — and a natural fit for batched device code, because the
+per-snarl solve becomes a batched *rotated OLS* on the existing kernel:
 
   y = X b + u + e,   u ~ N(0, sg^2 K),  e ~ N(0, se^2 I),  delta = se^2/sg^2
 

@@ -2,8 +2,8 @@
 
 The reference uses Boost.Math CDFs (stats_test.cpp:205-256,476-484) and, for
 chi-squared statistics above 85, a 50-digit-decimal evaluation of the tail to
-dodge the catastrophic ``1 - cdf`` cancellation (stats_test.cpp:205-209).  On
-TPU we instead evaluate the survival function *directly* via the regularized
+dodge the catastrophic ``1 - cdf`` cancellation (stats_test.cpp:205-209).
+Here we instead evaluate the survival function *directly* via the regularized
 upper incomplete gamma, which keeps full relative precision in f64 down to
 ~1e-300 — numerically stronger than the reference's double branch and
 matching its multiprecision branch to well beyond 4 significant digits.

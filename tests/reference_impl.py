@@ -3,7 +3,7 @@
 Written directly from the C++ sources (binary_table.cpp, quantitative_table
 .cpp, snarl_analyzer.cpp, stats_test.cpp) using numpy/scipy — deliberately
 naive and per-snarl, serving as the cross-validation oracle for the batched
-TPU pipeline (the same role tests/regression/ plays for the reference).
+device pipeline (the same role tests/regression/ plays for the reference).
 """
 
 from __future__ import annotations
